@@ -1,9 +1,8 @@
 """Quenched 2D U(1) gauge-configuration generator -> Wilson--Dirac operators
-for lattices beyond the two shipped .mat files (BASELINE.json configs 4-5:
-256^2 single-host, 512^2 multi-host).
+for every named config (gateway.py; pinned oracles in oracles.py).
 
-The shipped Schwinger matrices are exactly (verified to 0.0 against
-schwinger128.mat, see tests/test_gauge.py):
+The reference's Schwinger matrices have exactly this algebra (checked to
+0.0 against its 128^2 matrix when that file was available):
 
     D = (m + 4) I
         + u_t(x,t)       (1 - sigma1) delta_{t+1}

@@ -5,15 +5,15 @@ The reference stores D as a scipy CSR matrix and multiplies with native SpMV
 Schwinger matrices lies on one of 9 lattice offsets per row -- diagonal + 4
 same-spin nearest neighbors + 4 opposite-spin nearest neighbors, with periodic
 wrap (verified empirically for both shipped .mat files; see
-io/stencil.py). The TPU-native representation is therefore a dense complex
+io/stencil.py). The device representation is therefore a dense complex
 coefficient tensor
 
     C[s_out, s_in, tap, x, t]     shape (2, 2, 5, X, T)
 
 with taps ((dx, dt)) = ((0,0), (0,1), (0,-1), (1,0), (-1,0)); the cross-spin
 diagonal tap is structurally zero. The matvec is 5 rolled reads fused with a
-(2x2 spin) contraction -- pure VPU work that XLA fuses into a handful of
-elementwise kernels, batched over any number of probe vectors at once.
+(2x2 spin) contraction -- elementwise work that XLA fuses into a handful of
+kernels, batched over any number of probe vectors at once.
 
 Vector layout matches the reference's spin-major flat indexing
 (index = spin*(N/2) + x*nt + t, reference: gateway.py:159, multigrid.py:144-149):
@@ -24,15 +24,16 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import jax
 import jax.numpy as jnp
-from flax import struct
+from jax import lax
+
+from deflatedmlmc_schwinger_tpu.ops.pytree import pytree_dataclass, static_field
 
 # (dx, dt) offsets; tap 0 is the on-site term.
 TAPS: Tuple[Tuple[int, int], ...] = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0))
 
 
-@struct.dataclass
+@pytree_dataclass
 class StencilOperator:
     """9-point gauged stencil on the (spin=2, X, T) lattice.
 
@@ -40,8 +41,8 @@ class StencilOperator:
     """
 
     coeffs: jnp.ndarray
-    nx: int = struct.field(pytree_node=False, default=0)
-    nt: int = struct.field(pytree_node=False, default=0)
+    nx: int = static_field(0)
+    nt: int = static_field(0)
 
     @property
     def n(self) -> int:
@@ -81,7 +82,8 @@ def stencil_matvec(coeffs: jnp.ndarray, v: jnp.ndarray, nx: int, nt: int) -> jnp
         if dt:
             shifted = jnp.roll(shifted, shift=-dt, axis=-1)
         # out[..., s, x, t] += sum_{s'} C[s, s', k, x, t] * shifted[..., s', x, t]
-        out = out + jnp.einsum("abxt,...bxt->...axt", coeffs[:, :, k], shifted)
+        out = out + jnp.einsum("abxt,...bxt->...axt", coeffs[:, :, k], shifted,
+                               precision=lax.Precision.HIGHEST)
     return out.reshape(v.shape)
 
 
@@ -114,18 +116,18 @@ def stencil_matvec_host(coeffs, v, nx: int, nt: int):
     return out.reshape(v.shape)
 
 
-@struct.dataclass
+@pytree_dataclass
 class PairStencilOperator:
     """Device form of the stencil operator on (re, im) pairs.
 
     The spin contraction is unrolled into elementwise multiply-adds (20 real
-    FMA fields per output component) -- no complex dtype, no dot_general, so
-    it is safe inside lax loops on every backend and maps to pure VPU work.
+    FMA fields per output component) -- no complex dtype, no dot_general:
+    XLA fuses the whole apply into elementwise kernels.
     """
 
     coeffs: "CP"  # pair of (2, 2, 5, X, T) real arrays
-    nx: int = struct.field(pytree_node=False, default=0)
-    nt: int = struct.field(pytree_node=False, default=0)
+    nx: int = static_field(0)
+    nt: int = static_field(0)
 
     @property
     def n(self) -> int:
@@ -136,47 +138,46 @@ class PairStencilOperator:
         return self.coeffs.re.dtype
 
     def matvec(self, v: "CP") -> "CP":
-        """Apply to flat pair vectors v of shape (..., N).
+        """Apply to flat pair vectors v of shape (..., N): the single-pass
+        kernel on the GPU (ops/stencil_kernel.py), XLA elsewhere."""
+        from deflatedmlmc_schwinger_tpu.ops import stencil_kernel
 
-        On the TPU backend, tile-aligned lattices dispatch to the fused
-        single-pass Pallas kernel (ops/pallas_stencil.py); this rolled-read
-        XLA path is the oracle and the CPU/small-lattice fallback."""
-        from deflatedmlmc_schwinger_tpu.ops import cplx
-        from deflatedmlmc_schwinger_tpu.ops import pallas_stencil
+        if stencil_kernel.use_kernel(self.nx, self.nt):
+            return stencil_kernel.stencil_apply(self.coeffs, v, self.nx, self.nt)
+        return pair_stencil_xla(self.coeffs, v, self.nx, self.nt)
 
-        nx, nt = self.nx, self.nt
-        if pallas_stencil.pallas_available(nx, nt):
-            import jax
 
-            return pallas_stencil.stencil_matvec_pallas(
-                self.coeffs, v, nx, nt, interpret=jax.default_backend() != "tpu"
-            )
-        batch = v.re.shape[:-1]
-        gr = v.re.reshape(batch + (2, nx, nt))
-        gi = v.im.reshape(batch + (2, nx, nt))
-        out_r = [0.0, 0.0]
-        out_i = [0.0, 0.0]
-        for k, (dx, dt) in enumerate(TAPS):
-            sr, si = gr, gi
-            if dx:
-                sr = jnp.roll(sr, shift=-dx, axis=-2)
-                si = jnp.roll(si, shift=-dx, axis=-2)
-            if dt:
-                sr = jnp.roll(sr, shift=-dt, axis=-1)
-                si = jnp.roll(si, shift=-dt, axis=-1)
-            for a in range(2):
-                for b in range(2):
-                    if a != b and k == 0:
-                        continue  # cross-spin diagonal structurally zero
-                    cr = self.coeffs.re[a, b, k]
-                    ci = self.coeffs.im[a, b, k]
-                    vr = sr[..., b, :, :]
-                    vi = si[..., b, :, :]
-                    out_r[a] = out_r[a] + (cr * vr - ci * vi)
-                    out_i[a] = out_i[a] + (cr * vi + ci * vr)
-        yr = jnp.stack(out_r, axis=-3).reshape(v.re.shape)
-        yi = jnp.stack(out_i, axis=-3).reshape(v.im.shape)
-        return cplx.CP(yr, yi)
+def pair_stencil_xla(coeffs, v, nx: int, nt: int):
+    """The pair stencil in plain jax.numpy (5 rolled reads, 18 complex
+    multiply-adds per site), fused by XLA; the reference for the kernel."""
+    from deflatedmlmc_schwinger_tpu.ops import cplx
+
+    batch = v.re.shape[:-1]
+    gr = v.re.reshape(batch + (2, nx, nt))
+    gi = v.im.reshape(batch + (2, nx, nt))
+    out_r = [0.0, 0.0]
+    out_i = [0.0, 0.0]
+    for k, (dx, dt) in enumerate(TAPS):
+        sr, si = gr, gi
+        if dx:
+            sr = jnp.roll(sr, shift=-dx, axis=-2)
+            si = jnp.roll(si, shift=-dx, axis=-2)
+        if dt:
+            sr = jnp.roll(sr, shift=-dt, axis=-1)
+            si = jnp.roll(si, shift=-dt, axis=-1)
+        for a in range(2):
+            for b in range(2):
+                if a != b and k == 0:
+                    continue  # cross-spin diagonal structurally zero
+                cr = coeffs.re[a, b, k]
+                ci = coeffs.im[a, b, k]
+                vr = sr[..., b, :, :]
+                vi = si[..., b, :, :]
+                out_r[a] = out_r[a] + (cr * vr - ci * vi)
+                out_i[a] = out_i[a] + (cr * vi + ci * vr)
+    yr = jnp.stack(out_r, axis=-3).reshape(v.re.shape)
+    yi = jnp.stack(out_i, axis=-3).reshape(v.im.shape)
+    return cplx.CP(yr, yi)
 
 
 def pair_operator(op: StencilOperator) -> PairStencilOperator:

@@ -6,7 +6,7 @@ Two ways to run the 9-point stencil on an 'x'-sharded lattice:
 
   1. the implicit path (parallel/mesh.py + ops/dirac.py): shard the grid
      fields and let GSPMD turn ``jnp.roll`` into collective-permutes;
-  2. this module: ``shard_map`` with hand-written ICI halo exchange --
+  2. this module: ``shard_map`` with a hand-written halo exchange --
      each shard sends exactly ONE boundary row per direction per apply
      (``lax.ppermute`` ring in x), computes its interior locally, and never
      materializes a full shifted copy. This is the form whose communication
@@ -110,7 +110,7 @@ def halo_matvec(
 
     Returns f(v: CP grid (B, 2, X, T)) -> CP of the same shape/sharding.
     Coefficients must already be sharded (shard_coeffs). The per-apply
-    communication is exactly two boundary rows per shard over the ICI ring.
+    communication is exactly two boundary rows per shard over the x ring.
     """
     nshards = mesh.shape[x_axis]
     if pop.nx % nshards:

@@ -8,8 +8,8 @@ XLA inserts is the tiny all-reduce for the convergence predicates and, at the
 end, the moment reduction.
 
 The secondary axis is 'x' (lattice domain decomposition, P3): grid-form
-fields (..., 2, X, T) shard along X; the stencil's jnp.roll becomes an ICI
-halo exchange (collective-permute) inserted by XLA.
+fields (..., 2, X, T) shard along X; the stencil's jnp.roll becomes a halo
+exchange (collective-permute) inserted by XLA.
 
 Probes are counter-based (trace/probes.py), so estimates are bit-identical
 across mesh shapes -- the mesh-invariance tests rely on this.

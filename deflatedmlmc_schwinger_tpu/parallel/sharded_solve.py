@@ -10,7 +10,7 @@ solver):
 
   * fine-level matvec: the explicit halo-exchange stencil kernel
     (parallel/halo.py) -- one boundary row per neighbor per apply over the
-    ICI ring, computed on shard-local (B, 2, X/k, T) grids;
+    x ring, computed on shard-local (B, 2, X/k, T) grids;
   * fine-level smoothing: the GMRES-polynomial smoother needs ZERO inner
     products (mg/cycle.py), so it is embarrassingly shard-local; the
     adaptive 'gmres' smoother psums its dots over the x axis;
@@ -140,8 +140,8 @@ class ShardedMGSolver:
                  ))
                 for i, lev in enumerate(hier.levels[:-1])
             ]
-            # shard-local matvec; the fused-kernel fast path stays off (the
-            # halo matvec, not op.matvec, is the operator inside shard_map)
+            # shard-local matvec (the halo matvec, not op.matvec, is the
+            # operator inside shard_map)
             self._sm0 = lambda mv, r: poly_smoother(mv, r, roots[0])
             self._sm0_res = lambda mv, b: poly_smoother(
                 mv, b, roots[0], with_residual=True
@@ -246,7 +246,7 @@ class ShardedMGSolver:
             # <x, z> needs the full row anyway, and handing out x-sharded
             # arrays would leave every downstream eager op inserting its own
             # collectives (which deadlocks the in-process CPU communicator
-            # and is slower on ICI than this single fused all_gather)
+            # and costs more launches than this single fused all_gather)
             xg = res.x.reshape((B, 2, Xl, nt))
             xf = CP(
                 lax.all_gather(xg.re, x_axis, axis=2, tiled=True),
@@ -302,13 +302,13 @@ class ShardedMGSolver:
             b = CP(_put(b.re, self.mesh, bspec), _put(b.im, self.mesh, bspec))
         out = fn(self._coeffs, self._p5, self._coarse, b,
                  jnp.asarray(tol_eff, b.re.dtype))
-        if jax.default_backend() == "cpu":
-            # the virtual-device CPU backend deadlocks when a second
-            # distributed computation (e.g. the estimator's eager <x, z>)
-            # interleaves with this program's in-flight collectives -- its
-            # in-process communicator has no cross-program ordering. Real
-            # TPU meshes order collectives per device; no barrier there.
-            jax.block_until_ready(out)
+        # barrier on every backend: the virtual-device CPU communicator
+        # deadlocks when a second distributed computation (e.g. the
+        # estimator's eager <x, z>) interleaves with this program's
+        # in-flight collectives, and no backend is relied on to order
+        # collectives across programs. The mesh sampling loop fetches every
+        # batch to the host right after, so the barrier adds no sync.
+        jax.block_until_ready(out)
         x, resnorm, bnorm, iters, cycles, stalled = out
         it = jnp.max(iters)
         self.num_iters = it

@@ -40,7 +40,7 @@ def print_post_results(cfg: TraceConfig, result: Dict, example: str) -> None:
 
 
 def result_to_json(cfg: TraceConfig, result: Dict, example: str) -> str:
-    """Structured (JSON-lines) metrics -- the TPU-native observability path."""
+    """Structured (JSON-lines) metrics of one run."""
     out = dict(
         example=example,
         matrix=cfg.matrix,

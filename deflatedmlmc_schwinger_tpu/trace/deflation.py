@@ -10,7 +10,7 @@ Reference: utils.py:130-201. Semantics preserved exactly:
     tr1 = tr(U^H V |Lambda|) for defl_type 'exact' (utils.py:174-189) or the
     explicitly applied f_l for 'inexact_01'.
 
-TPU-native upgrades (flagged where behavior could differ):
+Changes from the reference (flagged where behavior could differ):
   * the eigensolver is MG-driven inverse subspace iteration (Hutchinson) /
     block power iteration (MLMC) instead of ARPACK -- solvers/eigs.py;
   * correction_mode='solve' computes tr1 = sum_i <U_i, A^{-1} Pi^T U_i> with
@@ -50,6 +50,7 @@ class Deflation:
     resnorms: Optional[np.ndarray] = None
     aux_V: Optional[CP] = None   # MLMC: the reference's Ux (for inexact_03)
     proj_B: Optional[CP] = None  # inexact_03: (U^H A V)^{-1}, precomputed
+    stalled_rows: int = 0        # correction solves that ended above tol
 
 
 def _device_basis(V: np.ndarray, rdtype) -> CP:
@@ -164,6 +165,7 @@ def hutchinson_deflation(
          else max(k + 2, int(round(1.25 * k))))
     m = max(m, k)
     basis_solver = solver
+    correction_solver = solver
     if cfg.defl_solver is not None:
         # setup-specific solver profile (config.py defl_solver): deflation
         # solves are stall-cutoff-bound near-kernel systems whose cost
@@ -175,7 +177,7 @@ def hutchinson_deflation(
         nsh = fine_solver.mesh.shape[fine_solver.sample_axis]
         if k % nsh == 0:
             m = ((m + nsh - 1) // nsh) * nsh
-            basis_solver = fine_solver
+            basis_solver = correction_solver = fine_solver
 
     def apply_Qinv(v: CP) -> CP:  # Q^{-1} v = A^{-1} gamma3 v
         return basis_solver.solve(gamma3_pair(v), solve_tol).x
@@ -206,20 +208,21 @@ def hutchinson_deflation(
     elif correction_mode == "solve":
         # exact: tr(A^{-1} Pi^T U U^H) = sum_i <U_i, A^{-1} Pi^T U_i>.
         # The rhs are the deflation vectors -- the hardest systems in the
-        # run -- so the f32 solves can take f64 host-residual refinement
-        # (solve_refined_host; OFF by default). Bias provenance: a ~+0.5
-        # shift of the 128^2 trace was observed ONLY with the pre-r3
-        # Givens-estimate FGMRES exits, whose true relative residual was
-        # ~1e-2; with the true-residual termination fix, an honest 5e-4
-        # solve leaves the unrefined correction accurate (refinement moved
-        # the flagship trace by <1e-3 -- config.py defl_refine_steps, which
-        # is why the tuned configs ship with refinement off). The rows pad
-        # to the sampling batch size so every solve reuses that XLA program.
+        # run -- and no sampling averages their error away, so they run on
+        # the SAMPLING solver (cfg.solver), not the cheap basis profile:
+        # on the 128^2 config the depth-4 defl_solver left one of these
+        # rows at relative residual ~1 and biased tr1 by 17 (76% of the
+        # trace), while the sampling solver met 5e-4 on every row but one
+        # (5.4e-4). Rows that still end above tol are counted into the
+        # result's stalled_rows. The f32 solves can also take
+        # f64 host-residual refinement (config.py defl_refine_steps). The
+        # rows pad to the sampling batch size, so the solve reuses that
+        # XLA program.
         rhs = Ur
         if cfg.use_permuted and d:
             rhs = shift_rows_down_pair(rhs, d)  # Pi^T @ U
-        Z, _ = solve_refined_host(
-            basis_solver, op, rhs, cfg.function_tol,
+        Z, stalled = solve_refined_host(
+            correction_solver, op, rhs, cfg.function_tol,
             int(cfg.defl_refine_steps), int(cfg.probe_batch),
         )
         Uh = (np.asarray(Ur.re, np.float64)
@@ -228,7 +231,8 @@ def hutchinson_deflation(
     else:
         raise ValueError(correction_mode)
     return Deflation(
-        U=Ur.T, tr1=tr1, values=theta, resnorms=eig.resnorms
+        U=Ur.T, tr1=tr1, values=theta, resnorms=eig.resnorms,
+        stalled_rows=int(np.sum(stalled)) if correction_mode == "solve" else 0,
     )
 
 

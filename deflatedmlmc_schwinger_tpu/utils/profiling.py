@@ -1,8 +1,8 @@
-"""Device profiling hooks (SURVEY.md section 5.1 TPU equivalent: the
-reference's CustomTimer + print spans become jax.profiler traces with named
-scopes; PhaseTimer covers the host-visible wall clocks).
+"""Device profiling hooks (SURVEY.md section 5.1: the reference's
+CustomTimer + print spans become jax.profiler traces with named scopes;
+PhaseTimer covers the host-visible wall clocks).
 
-Set DMLMC_PROFILE=<dir> to capture an XLA/TPU trace of any entry point
+Set DMLMC_PROFILE=<dir> to capture a device trace of any entry point
 (viewable with TensorBoard or Perfetto); ``named_scope`` annotates estimator
 phases inside the trace.
 """

@@ -34,10 +34,11 @@ from deflatedmlmc_schwinger_tpu.io import load_operator
 from deflatedmlmc_schwinger_tpu.parallel import allgather_moments, make_mesh
 from deflatedmlmc_schwinger_tpu.trace import hutchinson
 from deflatedmlmc_schwinger_tpu.trace.stats import RunningMoments
+from deflatedmlmc_schwinger_tpu.oracles import MASS16, SPEC16
 
 cfg = TraceConfig(
-    matrix="schwinger16.mat",
-    mass=-1.00690114 * 0.99,
+    matrix=SPEC16,
+    mass=MASS16,
     latt_dims=(16, 16),
     max_nr_levels=3,
     aggrs=(4, 4),

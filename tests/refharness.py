@@ -1,8 +1,7 @@
 """Import-and-drive harness for the reference code at /root/reference.
 
 Used ONLY by matched-seed parity tests and artifact runs (docs/PARITY.md):
-the reference is the NumPy/SciPy oracle the BASELINE.json north star demands
-matched-seed agreement with. Two shims make it runnable on this image
+the reference is the NumPy/SciPy oracle for matched-seed agreement. Two shims make it runnable on this image
 (exactly the two the survey used, SURVEY.md intro):
 
   * ``pyamg`` is not installed -- a pure-Python flexible GMRES stands in for
@@ -262,16 +261,15 @@ def _make_dense_pair_p():
     P is not block-diagonal under our contiguous-aggregate layout -- at
     parity-test sizes a dense pair matmul is exact and fast.
 
-    Declared as a flax struct dataclass (lazily, keeping refharness
-    importable without jax side effects at module load) because the
-    hierarchy rides MGSolver.solve's jitted program as the ``ctx`` ARGUMENT
+    Declared as a pytree dataclass (lazily, keeping refharness importable
+    without jax side effects at module load) because the hierarchy rides
+    MGSolver.solve's jitted program as the ``ctx`` ARGUMENT
     (solvers/fgmres.py) -- every node in it must be a registered pytree."""
-    from flax import struct
-
     from deflatedmlmc_schwinger_tpu.ops import cplx
     from deflatedmlmc_schwinger_tpu.ops.cplx import CP
+    from deflatedmlmc_schwinger_tpu.ops.pytree import pytree_dataclass
 
-    @struct.dataclass
+    @pytree_dataclass
     class DensePairP:
         mat: CP
 

@@ -1,4 +1,4 @@
-"""Checkpoint/resume tests (SURVEY.md section 5.4 TPU equivalent)."""
+"""Checkpoint/resume tests (SURVEY.md section 5.4)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -10,6 +10,7 @@ from deflatedmlmc_schwinger_tpu.utils.checkpoint import (
     load_hierarchy,
     save_hierarchy,
 )
+from deflatedmlmc_schwinger_tpu.oracles import MASS16, SPEC16
 
 
 def test_hierarchy_roundtrip(tmp_path, op16):
@@ -18,7 +19,7 @@ def test_hierarchy_roundtrip(tmp_path, op16):
 
     op, A = op16
     cfg = TraceConfig(
-        matrix="schwinger16.mat", mass=-1.00690114 * 0.99, latt_dims=(16, 16),
+        matrix=SPEC16, mass=MASS16, latt_dims=(16, 16),
         max_nr_levels=3, aggrs=(4, 4), dof=(2, 4, 4), accuracy_mg_eigvs="low",
         test_vectors_type="RSVs", use_permuted=True, x_displacement=2,
         chebyshev_degree=10, subspace_iters=2,
@@ -69,7 +70,7 @@ def test_resume_continues_same_stream(tmp_path, op16):
 
     op, A = op16
     cfg = TraceConfig(
-        matrix="schwinger16.mat", mass=-1.00690114 * 0.99, latt_dims=(16, 16),
+        matrix=SPEC16, mass=MASS16, latt_dims=(16, 16),
         max_nr_levels=3, aggrs=(4, 4), dof=(2, 4, 4), accuracy_mg_eigvs="low",
         test_vectors_type="RSVs", use_permuted=False, trace_tol=1e-2,
         nr_deflat_vctrs=0, chebyshev_degree=10, subspace_iters=2,
@@ -98,7 +99,7 @@ def test_mlmc_resume_continues_same_stream(tmp_path, op16):
 
     op, A = op16
     cfg = TraceConfig(
-        matrix="schwinger16.mat", mass=-1.00690114 * 0.99, latt_dims=(16, 16),
+        matrix=SPEC16, mass=MASS16, latt_dims=(16, 16),
         max_nr_levels=3, aggrs=(4, 4), dof=(2, 4, 4), accuracy_mg_eigvs="low",
         test_vectors_type="RSVs", use_permuted=False, trace_tol=1e-2,
         nr_deflat_vctrs=0, mlmc_deflat_vctrs=(0, 0), mlmc_levels_to_skip=(),

@@ -18,14 +18,12 @@ from deflatedmlmc_schwinger_tpu.mg import MGSolver, setup_hierarchy
 from deflatedmlmc_schwinger_tpu.ops import cplx
 from deflatedmlmc_schwinger_tpu.trace import mlmc
 from deflatedmlmc_schwinger_tpu.trace.deflation import mlmc_level_deflation
-
-MASS16 = -1.00690114 * 0.99
-EXACT16 = 265.85810646578824
+from deflatedmlmc_schwinger_tpu.oracles import MASS16, SPEC16
 
 
 def cfg16(**kw):
     base = dict(
-        matrix="schwinger16.mat",
+        matrix=SPEC16,
         mass=MASS16,
         latt_dims=(16, 16),
         max_nr_levels=3,
@@ -112,7 +110,7 @@ def test_inexact_03_projector_matches_dense_oracle(setup16v):
     assert np.max(np.abs(x_def - oracle)) < 1e-8
 
 
-def test_mlmc_inexact_01_end_to_end(setup16v):
+def test_mlmc_inexact_01_end_to_end(setup16v, exact16):
     """Full MLMC with defl_type='inexact_01' still matches the exact dense
     trace (5-sigma agreement): the orthogonal projector plus the directly
     computed tr(V^H f V) compensation is unbiased up to inner-solve error."""
@@ -123,6 +121,6 @@ def test_mlmc_inexact_01_end_to_end(setup16v):
         res["ests_dev"] / max(np.sqrt(res["nr_ests"]), 1) for res in r["results"]
     ]
     stderr = max(np.sqrt(sum(d * d for d in devs)), 1e-12)
-    assert abs(r["trace"] - EXACT16) < 5 * stderr + 0.02 * abs(EXACT16)
+    assert abs(r["trace"] - exact16) < 5 * stderr + 0.02 * abs(exact16)
     # the aggregate stderr field matches the per-level combination
     assert abs(r["std_dev"] - stderr) < 1e-12

@@ -52,7 +52,7 @@ def test_subspace_iteration_largest_dense():
 
 def test_subspace_iteration_largest_clustered_pm_pairs():
     """Indefinite spectrum with near-degenerate +/- pairs at the top -- the
-    MLMC difference operator's shape (VERDICT round-1 weak item 8: plain
+    MLMC difference operator's shape (plain
     block power iteration can stall on clustered +/- lambda).  The top
     cluster is {+5, -5, +4.995, -4.995}: power iteration cannot separate the
     pair magnitudes, so convergence must come from the Rayleigh--Ritz

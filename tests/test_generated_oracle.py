@@ -1,8 +1,6 @@
-"""Correctness oracles for GENERATED gauge ensembles (BASELINE.json configs
-4-5 / VERDICT round-1 item 8).
+"""Correctness oracles for GENERATED gauge ensembles.
 
-The 256^2/512^2 production configs (G301/G302) run on lattices sampled by
-io/gauge.py, where no recorded reference value exists.  These tests pin the
+Every named config runs on a lattice sampled by io/gauge.py.  These tests pin the
 generator + estimator stack against exact dense traces computed once for
 small generated lattices (same ensemble construction, same seeding scheme),
 so a regression anywhere in sample_links -> stencil_from_links -> estimators
@@ -13,7 +11,11 @@ shows up against an absolute oracle:
     stream and stencil algebra bit-for-bit at the trace level);
   * 64^2 (n=8192, same ensemble parameters): dense inverse takes ~70 s, so
     only the PINNED value is used (recorded 2026-08-19 from
-    np.trace(np.linalg.inv(csr_from_stencil(coeffs).todense()))).
+    np.trace(np.linalg.inv(csr_from_stencil(coeffs).todense())));
+  * 128^2 (G102/G202: beta=5.0, seed=8, mass = 0.99 * m_crit, displaced at
+    x_disp=2): EXACT128 = oracles.TRACE128, tr(D^-1 Pi^T) in complex128 from
+    a sparse LU solved against all 32768 unit columns (oracles.py recipe;
+    recomputed by tests/test_oracles.py under the slow marker).
 
 gamma3-Hermiticity holds for ANY U(1) configuration (io/gauge.py docstring);
 checked here on the 64^2 operator as the cheap structural diagnostic the
@@ -23,6 +25,7 @@ generated production configs rely on.
 import numpy as np
 import pytest
 
+from deflatedmlmc_schwinger_tpu import oracles
 from deflatedmlmc_schwinger_tpu.config import TraceConfig
 from deflatedmlmc_schwinger_tpu.io.gauge import generate_operator
 from deflatedmlmc_schwinger_tpu.io.stencil import csr_from_stencil
@@ -36,6 +39,7 @@ SEED = 11
 # dense-inverse oracles, pinned (see module docstring)
 EXACT32 = 355.550621261975
 EXACT64 = 1362.710619261613
+EXACT128 = oracles.TRACE128   # beta, seed, mass and method in oracles.py
 
 
 def gen_cfg32(**kw):

@@ -9,13 +9,12 @@ import pytest
 from deflatedmlmc_schwinger_tpu.config import SolverConfig, TraceConfig
 from deflatedmlmc_schwinger_tpu.mg import MGSolver, check_quality, setup_hierarchy
 from deflatedmlmc_schwinger_tpu.ops import cplx
-
-MASS16 = -1.00690114 * 0.99
+from deflatedmlmc_schwinger_tpu.oracles import MASS16, SPEC16
 
 
 def make_cfg(**kw):
     base = dict(
-        matrix="schwinger16.mat",
+        matrix=SPEC16,
         mass=MASS16,
         latt_dims=(16, 16),
         max_nr_levels=3,
@@ -182,7 +181,7 @@ def test_galerkin_block_stencil_matches_dense(op16):
     op, _ = op16
     pop = pair_operator(op)
     cfg = TraceConfig(
-        matrix="schwinger16.mat", mass=-1.00690114 * 0.99, latt_dims=(16, 16),
+        matrix=SPEC16, mass=MASS16, latt_dims=(16, 16),
         max_nr_levels=3, aggrs=(4, 4), dof=(2, 4, 4), accuracy_mg_eigvs="low",
         test_vectors_type="RSVs", use_permuted=False,
         chebyshev_degree=10, subspace_iters=2,
@@ -205,7 +204,7 @@ def test_poly_smoother_vcycle_converges(op16):
 
     op, A = op16
     cfg = TraceConfig(
-        matrix="schwinger16.mat", mass=-1.00690114 * 0.99, latt_dims=(16, 16),
+        matrix=SPEC16, mass=MASS16, latt_dims=(16, 16),
         max_nr_levels=3, aggrs=(4, 4), dof=(2, 4, 4), accuracy_mg_eigvs="low",
         test_vectors_type="RSVs", use_permuted=False,
         chebyshev_degree=10, subspace_iters=2,
@@ -274,7 +273,7 @@ def test_fused_matvec_precond_solve_matches_plain(hier16):
 
 
 def test_grouped_band_packing_exact(hier16, dense16):
-    """pack_grouped's MXU-shaped matvec is exact: packed == unpacked ==
+    """pack_grouped's grouped-band matvec is exact: packed == unpacked ==
     dense oracle on the level-1 Galerkin operator."""
     import dataclasses
 
@@ -321,3 +320,31 @@ def test_derived_solver_cached(hier16):
     )
     res = d1.solve(b, 1e-8)
     assert float(np.max(np.asarray(res.resnorm / res.bnorm))) < 1e-8
+
+
+def test_poly_smoother_residual_recurrence(op16):
+    """poly_smoother(with_residual=True) returns exactly (x, r - A x)."""
+    import jax
+
+    from deflatedmlmc_schwinger_tpu.mg.cycle import poly_smoother
+    from deflatedmlmc_schwinger_tpu.ops import cplx
+    from deflatedmlmc_schwinger_tpu.ops.dirac import pair_operator
+
+    op, _ = op16
+    pop = pair_operator(op)
+    rng = np.random.default_rng(29)
+    roots = tuple(
+        complex(a, b)
+        for a, b in zip(rng.standard_normal(3) + 3.0, rng.standard_normal(3))
+    )
+    z = rng.standard_normal((2, pop.n)) + 1j * rng.standard_normal((2, pop.n))
+    r = cplx.from_complex(z)
+    mv = jax.jit(pop.matvec)
+    x, cur = poly_smoother(mv, r, roots, with_residual=True)
+    x2 = poly_smoother(mv, r, roots)
+    np.testing.assert_allclose(
+        cplx.to_complex(x), cplx.to_complex(x2), atol=1e-13
+    )
+    np.testing.assert_allclose(
+        cplx.to_complex(cur), cplx.to_complex(r - pop.matvec(x)), atol=1e-12
+    )

@@ -1,5 +1,5 @@
 """Multi-process (multi-host) tests with a local TCP coordinator (SURVEY.md
-section 4 distributed test plan; VERDICT round 1 item 5): two jax processes,
+section 4 distributed test plan): two jax processes,
 2 virtual CPU devices each, form a 4-device global 'samples' mesh; the
 deflated-Hutchinson estimator must produce BIT-IDENTICAL results on both
 processes (counter-keyed probes + deterministic sample-order gather,
@@ -13,6 +13,8 @@ import sys
 
 import numpy as np
 import pytest
+
+from deflatedmlmc_schwinger_tpu.oracles import MASS16, SPEC16
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "mp_worker.py")
@@ -76,7 +78,7 @@ def test_two_process_matches_single_process(mp_results, op16):
     from deflatedmlmc_schwinger_tpu.trace import hutchinson
 
     cfg = TraceConfig(
-        matrix="schwinger16.mat", mass=-1.00690114 * 0.99, latt_dims=(16, 16),
+        matrix=SPEC16, mass=MASS16, latt_dims=(16, 16),
         max_nr_levels=3, aggrs=(4, 4), dof=(2, 4, 4), accuracy_mg_eigvs="low",
         test_vectors_type="RSVs", use_permuted=False, trace_tol=1e-8,
         max_nr_ests=16, probe_batch=8, nr_deflat_vctrs=4,

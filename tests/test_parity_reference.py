@@ -1,6 +1,6 @@
-"""Matched-seed parity against the actual reference code (BASELINE.json
-north star: "matched-seed numerical agreement with the NumPy/SciPy reference
-... at equal or lower per-sample variance").
+"""Matched-seed parity against the actual reference code ("matched-seed
+numerical agreement with the NumPy/SciPy reference ... at equal or lower
+per-sample variance").
 
 These tests import the reference from /root/reference through the shims in
 tests/refharness.py (pure-Python fgmres for pyamg, lgmres tol->rtol) and

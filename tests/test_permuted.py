@@ -18,13 +18,12 @@ import scipy.sparse as sp
 from deflatedmlmc_schwinger_tpu.config import TraceConfig
 from deflatedmlmc_schwinger_tpu.mg import setup_hierarchy
 from deflatedmlmc_schwinger_tpu.trace.mlmc import bblock_matrix
-
-MASS16 = -1.00690114 * 0.99
+from deflatedmlmc_schwinger_tpu.oracles import MASS16, SPEC16
 
 
 def cfgp(**kw):
     base = dict(
-        matrix="schwinger16.mat",
+        matrix=SPEC16,
         mass=MASS16,
         latt_dims=(16, 16),
         max_nr_levels=3,

@@ -28,8 +28,7 @@ from deflatedmlmc_schwinger_tpu.ops.dirac import (
     stencil_matvec_host,
 )
 from deflatedmlmc_schwinger_tpu.trace.deflation import hutchinson_deflation
-
-MASS16 = -1.00690114 * 0.99
+from deflatedmlmc_schwinger_tpu.oracles import MASS16, SPEC16
 
 
 def test_host_stencil_matches_device(op16):
@@ -46,7 +45,7 @@ def test_host_stencil_matches_device(op16):
 @pytest.fixture(scope="module")
 def f32_setup():
     cfg = TraceConfig(
-        matrix="schwinger16.mat",
+        matrix=SPEC16,
         mass=MASS16,
         latt_dims=(16, 16),
         max_nr_levels=3,

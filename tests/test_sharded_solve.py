@@ -1,8 +1,7 @@
 """Lattice-sharded production solve (parallel/sharded_solve.py): the FULL
 MG-preconditioned batched FGMRES under shard_map on a ('samples', 'x') mesh
 equals the replicated solve to solver tolerance, and the estimators are
-invariant to the mesh shape (SURVEY.md P1/P3 contracts; VERDICT round 1
-items 1 and 6)."""
+invariant to the mesh shape (SURVEY.md P1/P3 contracts)."""
 
 import numpy as np
 import pytest
@@ -13,14 +12,12 @@ from deflatedmlmc_schwinger_tpu.ops.dirac import pair_operator
 from deflatedmlmc_schwinger_tpu.parallel import ShardedMGSolver, make_mesh
 from deflatedmlmc_schwinger_tpu.trace import hutchinson, mlmc
 from deflatedmlmc_schwinger_tpu.trace.probes import make_probe_source
-
-MASS16 = -1.00690114 * 0.99
-EXACT16 = 265.85810646578824
+from deflatedmlmc_schwinger_tpu.oracles import MASS16, SPEC16
 
 
 def cfg16(**kw):
     base = dict(
-        matrix="schwinger16.mat",
+        matrix=SPEC16,
         mass=MASS16,
         latt_dims=(16, 16),
         max_nr_levels=3,

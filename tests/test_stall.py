@@ -5,9 +5,9 @@ abort the run with a clear error instead of silently biasing the trace.
 The reference solves every probe to 1e-12 unconditionally
 (reference: gateway.py:148) so it cannot under-solve silently; our stall
 cutoff (SolverConfig.stall_ratio) can, which is why the estimators enforce
-the policy (VERDICT r3 weak #4).
+the policy.
 
-The forced-stall configuration is 128^2-shaped: the real flagship operator
+The forced-stall configuration is 128^2-shaped: the pinned 128^2 operator
 with a deliberately crippled solver (restart far too small for the requested
 tolerance), so every probe row exits above tol and is flagged.
 """
@@ -19,8 +19,7 @@ from deflatedmlmc_schwinger_tpu.config import SolverConfig, TraceConfig
 from deflatedmlmc_schwinger_tpu.mg import setup_hierarchy
 from deflatedmlmc_schwinger_tpu.trace import hutchinson, mlmc
 from deflatedmlmc_schwinger_tpu.trace.stats import check_stalled
-
-MASS128 = -0.1320
+from deflatedmlmc_schwinger_tpu.oracles import MASS16, MASS128, SPEC16, SPEC128
 
 
 def cfg128_crippled(**kw):
@@ -28,7 +27,7 @@ def cfg128_crippled(**kw):
     tolerance: 4 Arnoldi steps / single cycle against a 1e-13 target on the
     near-critical 128^2 operator stalls every row."""
     base = dict(
-        matrix="schwinger128.mat",
+        matrix=SPEC128,
         mass=MASS128,
         latt_dims=(128, 128),
         max_nr_levels=3,
@@ -98,8 +97,8 @@ def test_healthy_run_has_zero_stalled(op16):
     """A properly configured 16^2 run must not flag anything."""
     op, _ = op16
     cfg = TraceConfig(
-        matrix="schwinger16.mat",
-        mass=-1.00690114 * 0.99,
+        matrix=SPEC16,
+        mass=MASS16,
         latt_dims=(16, 16),
         max_nr_levels=3,
         aggrs=(4, 4),

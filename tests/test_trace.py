@@ -15,14 +15,12 @@ from deflatedmlmc_schwinger_tpu.trace.stats import (
     RunningMoments,
     should_stop,
 )
-
-MASS16 = -1.00690114 * 0.99
-EXACT16 = 265.85810646578824  # dense inverse oracle (BASELINE.md)
+from deflatedmlmc_schwinger_tpu.oracles import MASS16, SPEC16
 
 
 def cfg16(**kw):
     base = dict(
-        matrix="schwinger16.mat",
+        matrix=SPEC16,
         mass=MASS16,
         latt_dims=(16, 16),
         max_nr_levels=3,
@@ -88,7 +86,7 @@ def test_confirmed_stop_guard():
     assert s(True, 32) is True
 
 
-def test_confirmed_stop_estimator_contract(setup16):
+def test_confirmed_stop_estimator_contract(setup16, exact16):
     """With stop_confirm the estimator still stops and still meets the
     stderr target (at worst one extra batch of samples)."""
     op, A, cfg, hier = setup16
@@ -96,15 +94,15 @@ def test_confirmed_stop_estimator_contract(setup16):
     stderr = r["std_dev"] / np.sqrt(r["nr_ests"])
     target = abs(cfg.trace_tol * r["rough_trace"])
     assert stderr < target
-    err = abs(r["trace"] - EXACT16)
+    err = abs(r["trace"] - exact16)
     assert err < 5 * max(stderr, 1e-12) + 1e-6, (r["trace"], stderr)
 
 
-def test_hutchinson_16(setup16):
+def test_hutchinson_16(setup16, exact16):
     op, A, cfg, hier = setup16
     r = hutchinson(op, cfg, hier=hier, verbose=False)
     stderr = max(r["std_dev"] / np.sqrt(r["nr_ests"]), 1e-12)
-    err = abs(r["trace"] - EXACT16)
+    err = abs(r["trace"] - exact16)
     # 5-sigma statistical agreement with the exact dense trace
     assert err < 5 * stderr + 1e-6, (r["trace"], stderr)
     assert r["nr_ests"] >= cfg.min_nr_ests
@@ -112,21 +110,21 @@ def test_hutchinson_16(setup16):
     assert r["total_complexity"] > 0
 
 
-def test_mlmc_16_totals(setup16):
+def test_mlmc_16_totals(setup16, exact16):
     op, A, cfg, hier = setup16
     r = mlmc(op, cfg, hier=hier, verbose=False)
     devs = [
         res["ests_dev"] / max(np.sqrt(res["nr_ests"]), 1) for res in r["results"]
     ]
     stderr = max(np.sqrt(sum(d * d for d in devs)), 1e-12)
-    err = abs(r["trace"] - EXACT16)
+    err = abs(r["trace"] - exact16)
     assert err < 5 * stderr + 1e-6, (r["trace"], stderr)
     # coarsest level is exact
     assert r["results"][-1]["ests_dev"] == 0.0
     assert r["results"][-1]["nr_ests"] == 1
 
 
-def test_mlmc_telescoping_identity_dense(setup16):
+def test_mlmc_telescoping_identity_dense(setup16, exact16):
     """The hierarchy's own telescoping sum reproduces the exact trace
     (pure linear algebra, no sampling; survey section 4 oracle)."""
     op, A, cfg, hier = setup16
@@ -143,10 +141,10 @@ def test_mlmc_telescoping_identity_dense(setup16):
     t2 = np.trace(A2inv)
     total = t0 + t1 + t2
     assert abs(total - np.trace(A0inv)) < 1e-9
-    assert abs(total - EXACT16) < 1e-6
+    assert abs(total - exact16) < 1e-6
 
 
-def test_mlmc_skip_level(setup16):
+def test_mlmc_skip_level(setup16, exact16):
     op, A, cfg, hier = setup16
     cfg_skip = cfg.replace(mlmc_levels_to_skip=(1,), mlmc_deflat_vctrs=(8, 0))
     r = mlmc(op, cfg_skip, hier=hier, verbose=False)
@@ -156,7 +154,7 @@ def test_mlmc_skip_level(setup16):
         res["ests_dev"] / max(np.sqrt(res["nr_ests"]), 1) for res in r["results"]
     ]
     stderr = max(np.sqrt(sum(d * d for d in devs)), 1e-12)
-    assert abs(r["trace"] - EXACT16) < 5 * stderr + 1e-6
+    assert abs(r["trace"] - exact16) < 5 * stderr + 1e-6
 
 
 def test_mlmc_rejects_bad_skip(setup16):
@@ -167,13 +165,13 @@ def test_mlmc_rejects_bad_skip(setup16):
         mlmc(op, cfg.replace(mlmc_levels_to_skip=(0, 1)), hier=hier, verbose=False)
 
 
-def test_mlmc_adaptive_schedule(setup16):
+def test_mlmc_adaptive_schedule(setup16, exact16):
     """SURVEY.md P2: optimal-allocation interleaved scheduling meets the
     AGGREGATE tolerance contract and still matches the dense oracle."""
     op, A, cfg, hier = setup16
     c = cfg.replace(mlmc_schedule="adaptive")
     r = mlmc(op, c, hier=hier, verbose=False)
-    err = abs(r["trace"] - EXACT16)
+    err = abs(r["trace"] - exact16)
     stderr = max(r["std_dev"], 1e-12)
     assert err < 5 * stderr + 1e-6, (r["trace"], stderr)
     # the aggregate stderr meets the total budget (the adaptive contract)
@@ -190,8 +188,8 @@ def test_mlmc_rejects_unknown_schedule(setup16):
         mlmc(op, cfg.replace(mlmc_schedule="nope"), hier=hier, verbose=False)
 
 
-def test_mlmc_exact_dense_levels(setup16):
-    """mlmc_exact_dense_max_n (TPU-native generalization of the reference's
+def test_mlmc_exact_dense_levels(setup16, exact16):
+    """mlmc_exact_dense_max_n (generalization of the reference's
     exact-coarsest rule, stoch_trace.py:418-437): difference levels under the
     cutoff are computed exactly (zero variance, one 'estimate'), the exact
     value equals the dense telescoping term, and the total still matches the
@@ -211,10 +209,10 @@ def test_mlmc_exact_dense_levels(setup16):
     assert abs(complex(r["results"][1]["ests_avg"]) - t1) < 1e-6 * max(abs(t1), 1)
     # total against the dense oracle, 5-sigma (level-0 stderr only)
     stderr = max(r["std_dev"], 1e-12)
-    assert abs(r["trace"] - EXACT16) < 5 * stderr + 1e-6, (r["trace"], stderr)
+    assert abs(r["trace"] - exact16) < 5 * stderr + 1e-6, (r["trace"], stderr)
 
 
-def test_mlmc_fine_deflation(setup16):
+def test_mlmc_fine_deflation(setup16, exact16):
     """mlmc_fine_deflation: level-0 difference probes deflated with the
     Hutchinson gamma3 basis, removed subspace added back exactly by the
     U-column correction batch -- the estimator stays unbiased (dense
@@ -226,15 +224,15 @@ def test_mlmc_fine_deflation(setup16):
     c = base.replace(mlmc_fine_deflation=True)
     r = mlmc(op, c, hier=hier, verbose=False)
     stderr = max(r["std_dev"], 1e-12)
-    assert abs(r["trace"] - EXACT16) < 5 * stderr + 1e-6, (r["trace"], stderr)
+    assert abs(r["trace"] - exact16) < 5 * stderr + 1e-6, (r["trace"], stderr)
     assert r["results"][0]["ests_dev"] <= 1.2 * r0["results"][0]["ests_dev"]
     # conflict with the reference-style level-0 deflation is rejected
     with pytest.raises(ValueError, match="mlmc_fine_deflation"):
         mlmc(op, c.replace(mlmc_deflat_vctrs=(8, 0)), hier=hier, verbose=False)
 
 
-def test_hutchinson_rough_batch_full(setup16):
-    """rough_batch_full averages the whole padded rough batch (TPU-native
+def test_hutchinson_rough_batch_full(setup16, exact16):
+    """rough_batch_full averages the whole padded rough batch (a
     tightening of the stopping target; reference uses 5 probes,
     stoch_trace.py:104) -- the estimator still stops and lands within
     statistics of the dense oracle."""
@@ -242,7 +240,7 @@ def test_hutchinson_rough_batch_full(setup16):
     cfg = cfg.replace(rough_batch_full=True)
     r = hutchinson(op, cfg, hier=hier, verbose=False)
     stderr = max(r["std_dev"] / np.sqrt(r["nr_ests"]), 1e-12)
-    err = abs(r["trace"] - EXACT16)
+    err = abs(r["trace"] - exact16)
     assert err < 5 * stderr + 1e-6, (r["trace"], stderr)
     # the stopping target followed the rough trace, which now tracks the
     # true trace to the batch-mean stderr
